@@ -1,10 +1,10 @@
-"""tpu-csv-index: a TPU-native CSV structural-indexing framework.
+"""csv_simd_tpu: a CSV structural-indexing framework on an accelerator.
 
-Built from scratch in JAX/Pallas with the capabilities of the Rust reference
+Built from scratch in JAX with the capabilities of the Rust reference
 (EdmundsEcho/csv-simd, a simdjson-stage1-derived CSV indexer; see SURVEY.md).
 The pipeline: raw CSV bytes -> byte classification -> quote-state masking via
 prefix-XOR parity -> structural-offset tape -> O(1) record/field serving,
-scaled over TPU device meshes with collective-stitched shard boundary state.
+scaled over device meshes with collective-stitched shard boundary state.
 
 Public API (idiomatic re-exposure of the reference surface, lib.rs:21-45):
 

@@ -9,10 +9,10 @@ tape.rs:216), and the construction is validated exhaustively over all 256
 byte values so a dialect that cannot be expressed as `LO[b&15] & HI[b>>4]`
 is rejected instead of silently misclassifying.
 
-On TPU the hot kernels classify by direct vector compares (the VPU has
-native byte compares; the nibble-LUT shuffle is an x86 `vpshufb` idiom),
-but the LUTs remain the canonical definition of the byte->code map and the
-golden model uses them verbatim for bit-level parity with the reference.
+On the device the scans classify by direct vector compares (the
+nibble-LUT shuffle is an x86 `vpshufb` idiom), but the LUTs remain the
+canonical definition of the byte->code map and the golden model uses
+them verbatim for bit-level parity with the reference.
 """
 
 from __future__ import annotations
@@ -142,9 +142,8 @@ class BlockConfig:
     """Shapes for the device pipeline.
 
     Bytes are laid out as (rows, LANES) uint8, row-major, so the flat byte
-    position of element (r, c) is r*LANES + c. LANES is the VPU lane width;
-    ROW_TILE rows form one kernel tile (must be a multiple of the int8
-    sublane tile, 32).
+    position of element (r, c) is r*LANES + c; ROW_TILE rows form one
+    tile (a multiple of 32, the rows of one packed word).
     """
 
     lanes: int = 128

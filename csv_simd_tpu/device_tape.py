@@ -1,10 +1,10 @@
 """Device-resident tape: serving as XLA gathers.
 
 The reference serves one field at a time from host memory
-(record_source.rs:104-140). On TPU the tape (offsets) and the bytes can
-both live in HBM, and serving becomes *batched* gathers — whole columns
-or arbitrary (record, field) batches in one fused device computation,
-something the CPU library cannot express:
+(record_source.rs:104-140). On the device the tape (offsets) and the
+bytes can both live in HBM, and serving becomes *batched* gathers —
+whole columns or arbitrary (record, field) batches in one fused device
+computation, something the CPU library cannot express:
 
   slot  = (record + 1) * jump + field          (slot arithmetic, vectorised)
   start = index[slot] + 1; end = index[slot+1] (offset gathers)
@@ -195,11 +195,12 @@ class TypedColumnsMixin:
                          max_len: int = 32, records=None):
         """EXACT fixed-point decimal column -> host int64 scaled by
         10^scale (e.g. scale=2: b\"12.34\" -> 1234). The digit math runs
-        on device in three base-1e8 int32 limbs (TPU has no native
-        int64); the limbs combine on host. Returns (values (N,) int64,
-        ok (N,) bool) — ok is False for >scale fractional digits (NO
-        silent rounding), >18 significant digits, exponents, or bad
-        grammar; values for not-ok rows are 0. See _parse_decimal_limbs."""
+        on device in three base-1e8 int32 limbs (the device code runs
+        without 64-bit types); the limbs combine on host. Returns
+        (values (N,) int64, ok (N,) bool) — ok is False for >scale
+        fractional digits (NO silent rounding), >18 significant digits,
+        exponents, or bad grammar; values for not-ok rows are 0. See
+        _parse_decimal_limbs."""
         out, lengths, valid = self._column_gather(field, max_len, records)
         return _combine_decimal(_parse_decimal_limbs(out, lengths, valid,
                                                      scale))
@@ -433,8 +434,9 @@ def _combine_decimal(limbs):
 @functools.partial(jax.jit, static_argnames=("scale",))
 def _parse_decimal_limbs(out, lengths, valid, scale: int):
     """Exact fixed-point decimal parse, on device, in three base-1e8
-    int32 limbs (TPU has no native int64; three limbs keep every
-    intermediate < 2^31 while covering the full int64 range).
+    int32 limbs (the device code runs without 64-bit types; three limbs
+    keep every intermediate < 2^31 while covering the full int64
+    range).
 
     Grammar: `[spaces][+|-]digits[.digits]` (also `.5`, `5.`) — no
     exponent. The parsed number times 10^scale must be an INTEGER of at
@@ -511,7 +513,7 @@ def _decode_fields(out, lengths, valid, quote: int, spaces: tuple):
     is >= 2 bytes with quote chars at both ends; doubled quotes collapse
     left-to-right ONLY inside a quoted field. The reference classified
     space/escape but never used them (stage1.rs:51, README.md:32) —
-    this is that stage-2, the TPU way: per-byte keep mask + stable-order
+    this is that stage-2 on the device: per-byte keep mask + stable-order
     compaction gather, no data-dependent shapes."""
     n, L = out.shape
     pos = jnp.arange(L, dtype=jnp.int32)[None, :]

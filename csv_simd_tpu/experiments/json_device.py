@@ -1,4 +1,4 @@
-"""Device JSON stage-1: escape-aware structural masking on TPU.
+"""Device JSON stage-1: escape-aware structural masking on the device.
 
 The jitted counterpart of experiments/json_levels.py (the golden
 bitmask-int oracle): classify -> odd-backslash-run escape resolution ->
@@ -33,8 +33,8 @@ def fast_cummax_i32(x: jnp.ndarray) -> jnp.ndarray:
     """Inclusive prefix-MAX of a 1-D int32 array (values >= -1) via the
     same hierarchical (rows, 512) log-step construction as
     fast_cumsum_i32 — `lax.associative_scan` over tens of millions of
-    elements unrolls into an XLA graph that takes minutes to compile on
-    TPU; this compiles in seconds and runs at memory speed."""
+    elements unrolls into a large XLA graph; this one stays a few
+    shift-adds per level."""
     n = x.shape[0]
     if n <= 2048:
         return jax.lax.associative_scan(jnp.maximum, x)

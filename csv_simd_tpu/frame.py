@@ -2,7 +2,7 @@
 
 The reference stops at serving raw field `&str`s one at a time
 (record_source.rs:104-140); every downstream consumer re-parses text on
-the host. On TPU the end-to-end story is better: build the structural
+the host. On the device the end-to-end story is better: build the structural
 index with the fused scan, then turn whole columns into typed arrays
 with the device parsers (device_tape.py) — the bytes never leave HBM
 until they are numbers. `read_typed` is that productized endpoint:

@@ -1,7 +1,7 @@
 """Golden model: a pure-NumPy oracle of the reference's stage-1 semantics.
 
 Implements the verified behavioral contract (SURVEY.md §8) that every device
-path (jnp pipeline, Pallas kernel, sharded build, streaming build) is
+path (the XLA scans, sharded build, streaming build) is
 differentially tested against:
 
 1. classify each byte via the nibble LUTs (stage1.rs:24-35, 41-52);

@@ -27,9 +27,12 @@ _build_error: Optional[str] = None
 
 
 def _build() -> Optional[str]:
+    # build beside the target and rename into place: processes that
+    # build at once (test workers) never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        "-pthread", _SRC, "-o", _SO,
+        "-pthread", _SRC, "-o", tmp,
     ]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -37,6 +40,7 @@ def _build() -> Optional[str]:
         return f"g++ invocation failed: {e}"
     if proc.returncode != 0:
         return f"g++ failed: {proc.stderr[-2000:]}"
+    os.replace(tmp, _SO)
     return None
 
 

@@ -13,7 +13,7 @@
 //                           single-byte dialect and actually parallel
 //                           (the reference's Chunk layer was never wired
 //                           to threads, tape.rs:13-40).
-//   2. extract_offsets_v3 — decode the TPU kernel's fold-packed bitmask
+//   2. extract_offsets_v3 — decode the device scan's fold-packed bitmask
 //                           words (ops/stage1_v3.py layout) into ascending
 //                           absolute byte offsets without expanding to a
 //                           byte mask.

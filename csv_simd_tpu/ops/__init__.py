@@ -1,2 +1,2 @@
 """Device ops: classification, quote-parity scan, bitmask packing,
-offset compaction, and the fused Pallas stage-1 kernel."""
+offset compaction, and the fused stage-1 scans."""

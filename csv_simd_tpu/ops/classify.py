@@ -2,8 +2,8 @@
 
 The reference classifies with two 16-entry nibble LUTs because `vpshufb`
 is the only fast byte-wise table lookup on x86 (stage1.rs:24-35,
-avx/stage1.rs:249-316). The VPU has native vector byte compares, so the
-idiomatic TPU classification is a handful of `==` compares against the
+avx/stage1.rs:249-316). Vector hardware with native byte compares
+classifies with a handful of `==` compares against the
 dialect's role bytes — same byte->class function (asserted against the
 LUTs in tests), no gather, fuses into the surrounding kernel.
 """

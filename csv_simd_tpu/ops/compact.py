@@ -2,7 +2,7 @@
 
 The reference's `crush_set_bits` peels set bits off each 64-bit mask with
 trailing-zeros + clear-lowest-bit, writing absolute offsets into an
-over-extended Vec (stage1.rs:162-296). The TPU-native equivalent is stream
+over-extended Vec (stage1.rs:162-296). The device equivalent is stream
 compaction with static shapes: an exclusive cumsum of the mask assigns each
 set position its output slot, and a scatter (via `nonzero(size=...)`, which
 XLA lowers to cumsum+scatter) materialises the offsets.

@@ -4,15 +4,15 @@ The reference computes the in-quote mask 64 bits at a time with
 PCLMULQDQ-against-all-ones — a 64-bit inclusive prefix XOR — and threads a
 sign-extended carry between blocks (avx/stage1.rs:342-407, reader.rs:239).
 XOR-parity of 0/1 indicators is just (prefix sum) mod 2, and prefix sum is
-associative, so on TPU the whole construction becomes a two-level scan over
-the (rows, lanes) byte layout:
+associative, so on the device the whole construction becomes a
+two-level scan over the (rows, lanes) byte layout:
 
   inclusive parity at flat position r*L + c
     = (cumsum of quotes within row r up to c
        + exclusive cumsum of per-row quote totals at r
        + carry_in) mod 2
 
-The same decomposition stitches tiles (sequential Pallas grid carry),
+The same decomposition stitches tiles,
 chunks (streaming carry) and shards (exclusive XOR-scan collective) —
 SURVEY.md §5.7/§5.8.
 """
@@ -26,7 +26,7 @@ def inclusive_scan_lanes(x: jnp.ndarray) -> jnp.ndarray:
     """Inclusive prefix-sum along the lane (last) axis via log2(lanes)
     shift-and-add steps (Hillis–Steele). Constant op count regardless of
     row count — unlike jnp.cumsum(axis=1), whose XLA:CPU lowering has
-    pathological compile-time scaling — and maps to plain VPU shifts/adds.
+    pathological compile-time scaling — and maps to plain shifts/adds.
     """
     lanes = x.shape[-1]
     shift = 1

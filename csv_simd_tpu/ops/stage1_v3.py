@@ -1,30 +1,24 @@
-"""Stage-1 v3: the production SWAR + MXU Pallas kernel.
+"""Stage-1 scan in plain XLA: byte-quad words -> packed structural bits.
 
-Evolution (measured on the v5e chip, tools/ablate.py):
-  v1 (byte-per-lane, iota-tril scans)          ~100 GB/s
-  v2 (SWAR byte quads, roll row scan)          ~103 GB/s
-  v3 (this)                                    ~311 GB/s
-  DMA + classify alone                          630-760 GB/s (the roof)
+The input is the (rows, 128) int32 view of the zero-padded bytes
+(ops/pack.pad_to_words): each lane holds 4 bytes, classified at once by
+exact SWAR byte equality (ops/swar.py). Quote parity is an in-word
+prefix-XOR, then an exclusive prefix over lanes and a cumsum over rows;
+a carry bit enters at the start, so chunks, tiles and shards stitch
+with the same associative carry.
 
-What changed vs v2:
-- both prefix scans ride the MXU as *int8* matmuls with int32
-  accumulation (no bf16/f32 converts): the lane scan contracts word
-  parities with a strict-upper-ones (128,128), and the row scan first
-  reduces row sums mod 2 (only parity matters downstream) so the
-  (T,T) strict-lower-ones matmul runs on exact {0,1} int8;
-- the bitmask pack is 3 constant-shift fold steps (halve rows, OR with
-  shift 1/2/4) instead of a per-row variable shift + sublane reduce;
-- the structural count moved out of the kernel: a popcount over the
-  packed words (1/16 the data) after the fact.
+Two packed layouts leave the scan:
 
-Packed word layout (tile-dependent, default tile=512): for grid step s,
-output row group g in [0, tile/8), word (s*tile/8 + g, lane) holds
-bit (8*b + sigma(j)) = byte b of input word (s*tile + j*tile/8 + g, lane),
-where sigma(j) = 7 - bitrev3(j) (right-shift fold order). Inverted by
-`unpack_packed_host` and the native extractor.
+- fold (`stage1_swar_xla`), tile-dependent, default tile=512: for tile
+  s, output row group g in [0, tile/8), word (s*tile/8 + g, lane) holds
+  bit (8*b + sigma(j)) = byte b of input word (s*tile + j*tile/8 + g,
+  lane), where sigma(j) = 7 - bitrev3(j) (right-shift fold order).
+  Inverted by `unpack_packed_host` and the native extractor.
+- sequential (`stage1_seq_xla`): the flat little-endian bitstream of
+  the structural mask, which offsets-free serving rank-selects in.
 
 Reference lineage: same fused pipeline as avx/stage1.rs:193-430; SWAR
-equality replaces the nibble-LUT vpshufb and MXU matmul scans replace
+equality replaces the nibble-LUT vpshufb and log-step scans replace
 PCLMULQDQ (prefix-XOR is associative; SURVEY.md §7.1).
 """
 
@@ -35,8 +29,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import DEFAULT_DIALECT, Dialect
 from .swar import (
@@ -51,28 +43,9 @@ from .swar import (
 _HI1 = -0x7F7F7F80  # 0x80808080 as int32
 
 LANES = 128
-DEFAULT_ROW_TILE = 512  # x 512 B/row = 256 KiB of input per grid step
+DEFAULT_ROW_TILE = 512  # x 512 B/row = 256 KiB of input per fold tile
 
 _SIGMA = [7, 3, 5, 1, 6, 2, 4, 0]  # sigma(j) = 7 - bitrev3(j)
-
-
-def _fold_pack(masked: jnp.ndarray, tile: int) -> jnp.ndarray:
-    """(tile, 128) 0x80-flag words -> (tile/8, 128) packed words via 3
-    constant LOGICAL right-shift folds (shifts 1, 2, 4) applied to the
-    flag bits directly — no separate (>>7)&mask prep pass. Flag bits
-    start at 8b+7 and land at 8b + 7 - bitrev3(j) = 8b + sigma(j);
-    right shifts stay within bytes. shift_right_logical has no sign
-    fill, dropping the three clear-ANDs the arithmetic form needed
-    (measured ~3% same-batch, compiled bit-identical; Mosaic lowers
-    int32 logical shifts fine — PERF_NOTES round 2-late)."""
-    t = masked
-    h = tile // 2
-    sr = jax.lax.shift_right_logical
-    t = t[:h] | sr(t[h:], 1)
-    h //= 2
-    t = t[:h] | sr(t[h:], 2)
-    h //= 2
-    return t[:h] | sr(t[h:], 4)
 
 
 def _classify(x: jnp.ndarray, dialect: Dialect):
@@ -103,245 +76,12 @@ def _classify_raw(x: jnp.ndarray, dialect: Dialect):
     return ~sf, qf
 
 
-def _stage1_v3_kernel(
-    carry_in_ref, w_ref, triu_ref, tril_ref, packed_ref,
-    parity_ref, carry_sm, *, dialect: Dialect, tile: int,
-    base_mode: str = "mul",
-):
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        carry_sm[0] = carry_in_ref[0]
-
-    x = w_ref[:]  # (T, 128) int32, 4 bytes per lane
-    # fused mask chain: raw classify outputs carry garbage outside
-    # bit-7 positions; every consumer below is bit-7-safe (prefix
-    # shifts are multiples of 8, >> 31 reads bit 31, and the final
-    # mask ANDs with 0x80808080) — see swar_classify_raw
-    s_no, qf = _classify_raw(x, dialect)
-    p_in = swar_prefix_xor_bytes(qf)          # in-word inclusive parity
-    # word parity kept in 0/-1 sign form (saves the &1): parities are
-    # only ever consumed mod 2 and (-k) & 1 == k & 1
-    wp = p_in >> 31                           # (T, 128) 0/-1
-
-    wp8 = wp.astype(jnp.int8)
-    lane_excl = jax.lax.dot_general(          # words before, same row
-        wp8, triu_ref[:], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)
-    # row total = exclusive prefix at the last lane + that lane's parity
-    # (free from the lane scan — no separate ones-matmul); mod 2 because
-    # only parity matters downstream, keeping values exact in int8
-    rowpar = ((lane_excl[:, LANES - 1 :] + wp[:, LANES - 1 :]) & 1)
-    rowpar8 = jnp.broadcast_to(rowpar, (tile, 8)).astype(jnp.int8)
-    row_excl_par = jax.lax.dot_general(       # rows before, this tile
-        tril_ref[:], rowpar8, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)     # (T, 8), narrow output
-
-    # carry folds into the NARROW (T,1) column, saving one full-width add
-    rowcol = row_excl_par[:, :1] + carry_sm[0]
-    if base_mode == "shift":
-        # sign-broadcast bit 0 of the parity count via two shift-class
-        # ops instead of (& 1) + (* 0x80808080): inq gains garbage
-        # outside bit-7 positions, which the mask chain's final
-        # & 0x80808080 clears (the contract swar_classify_raw already
-        # imposes). Shifts issue ~3.6x faster than alu on this VPU.
-        inq = p_in ^ (((lane_excl + rowcol) << 31) >> 31)
-    else:
-        base = (lane_excl + rowcol) & 1
-        inq = p_in ^ swar_broadcast_flag(base)  # inclusive in-quote flags
-    masked = ~(s_no | inq) & _HI1
-    packed_ref[:] = _fold_pack(masked, tile)
-
-    tile_par = (row_excl_par[tile - 1, 0] + rowpar[tile - 1, 0]) & 1
-    new_carry = (carry_sm[0] + tile_par) & 1
-    carry_sm[0] = new_carry
-    parity_ref[0, 0] = new_carry
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("dialect", "row_tile", "interpret", "vma", "base_mode"),
-)
-def stage1_fused(
-    w2d: jnp.ndarray,
-    carry_in,
-    dialect: Dialect = DEFAULT_DIALECT,
-    row_tile: int = DEFAULT_ROW_TILE,
-    interpret: bool = False,
-    vma: tuple = (),
-    base_mode: str = "mul",
-):
-    """(rows, 128) int32 byte-quad words + carry parity ->
-    (packed (rows//8, 128) int32, parity_out). rows % row-tile == 0
-    (callers pad via pad_to_words; tile = min(row_tile, rows)).
-
-    `vma`: mesh axes the outputs vary over — set to the shard axis when
-    calling from inside shard_map so the vma checker stays enabled."""
-    rows, lanes = w2d.shape
-    assert lanes == LANES and rows % 8 == 0, (rows, lanes)
-    tile = min(row_tile, rows)
-    assert rows % tile == 0, (rows, tile)
-    grid = rows // tile
-
-    triu = jnp.asarray(np.triu(np.ones((LANES, LANES), np.int8), 1))
-    tril = jnp.asarray(np.tril(np.ones((tile, tile), np.int8), -1))
-
-    kernel = functools.partial(_stage1_v3_kernel, dialect=dialect,
-                               tile=tile, base_mode=base_mode)
-    carry_arr = jnp.asarray(carry_in, jnp.int32).reshape(1)
-    if vma:
-        # inside shard_map the scan constants are replicated while the
-        # data is device-varying; align them so the vma checker passes
-        def _align(x):
-            missing = tuple(a for a in vma if a not in jax.typeof(x).vma)
-            return jax.lax.pcast(x, missing, to="varying") if missing else x
-
-        triu, tril, carry_arr = _align(triu), _align(tril), _align(carry_arr)
-
-    packed, parity = pl.pallas_call(
-        kernel,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((LANES, LANES), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, tile), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (tile // 8, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((rows // 8, LANES), jnp.int32, vma=frozenset(vma)),
-            jax.ShapeDtypeStruct((1, 1), jnp.int32, vma=frozenset(vma)),
-        ],
-        scratch_shapes=[pltpu.SMEM((1,), jnp.int32)],
-        interpret=interpret,
-    )(carry_arr, w2d, triu, tril)
-    return packed, parity[0, 0]
-
-
-def _seq_pack_weights() -> np.ndarray:
-    """(128, 16, 2) bf16 weights for the MXU sequential pack: lane
-    8g+l contributes v * 2^(4*(l%4)) to word g's low (l<4) or high
-    (l>=4) 16-bit half. Each half sums four <2^16 terms — exact in f32."""
-    w = np.zeros((128, 16, 2), np.float32)
-    for lane in range(128):
-        g, l = divmod(lane, 8)
-        w[lane, g, l // 4] = float(1 << (4 * (l % 4)))
-    return w
-
-
-def _stage1_seq_kernel(
-    carry_in_ref, w_ref, triu_ref, tril_ref, wlo_ref, whi_ref,
-    packed_ref, parity_ref, carry_sm, *, dialect: Dialect, tile: int
-):
-    """Fused kernel emitting the sequential packed layout: the scan is
-    identical to _stage1_v3_kernel; the pack compresses each word's 4
-    flags with the multiply-gather then reduces lane groups of 8 on the
-    MXU (two bf16 matmuls -> exact 16-bit halves; Mosaic cannot lower
-    the (T,16,8) lane reshape directly)."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        carry_sm[0] = carry_in_ref[0]
-
-    x = w_ref[:]
-    sf, qf = _classify(x, dialect)
-    p_in = swar_prefix_xor_bytes(qf)
-    wp = swar_word_parity(p_in)
-    wp8 = wp.astype(jnp.int8)
-    lane_excl = jax.lax.dot_general(
-        wp8, triu_ref[:], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)
-    rowpar = (lane_excl[:, LANES - 1 :] + wp[:, LANES - 1 :]) & 1
-    rowpar8 = jnp.broadcast_to(rowpar, (tile, 8)).astype(jnp.int8)
-    row_excl_par = jax.lax.dot_general(
-        tril_ref[:], rowpar8, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)
-    base = (lane_excl + row_excl_par[:, :1] + carry_sm[0]) & 1
-    inq = p_in ^ swar_broadcast_flag(base)
-    masked = sf & ~inq
-
-    u = jax.lax.shift_right_logical(masked, 7)
-    v = ((u * 0x01020408) >> 24).astype(jnp.bfloat16)
-    lo = jax.lax.dot_general(
-        v, wlo_ref[:], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).astype(jnp.int32)
-    hi = jax.lax.dot_general(
-        v, whi_ref[:], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).astype(jnp.int32)
-    packed_ref[:] = lo | (hi << 16)
-
-    tile_par = (row_excl_par[tile - 1, 0] + rowpar[tile - 1, 0]) & 1
-    new_carry = (carry_sm[0] + tile_par) & 1
-    carry_sm[0] = new_carry
-    parity_ref[0, 0] = new_carry
-
-
-@functools.partial(
-    jax.jit, static_argnames=("dialect", "row_tile", "interpret")
-)
-def stage1_fused_seq(
-    w2d: jnp.ndarray,
-    carry_in,
-    dialect: Dialect = DEFAULT_DIALECT,
-    row_tile: int = DEFAULT_ROW_TILE,
-    interpret: bool = False,
-):
-    """Pallas kernel with SEQUENTIAL packed output: (rows, 16) int32
-    whose flat little-endian bits are the structural mask in byte order
-    (same layout as stage1_seq_xla). Feeds offset-free serving."""
-    rows, lanes = w2d.shape
-    assert lanes == LANES and rows % 8 == 0, (rows, lanes)
-    tile = min(row_tile, rows)
-    assert rows % tile == 0, (rows, tile)
-    grid = rows // tile
-
-    triu = jnp.asarray(np.triu(np.ones((LANES, LANES), np.int8), 1))
-    tril = jnp.asarray(np.tril(np.ones((tile, tile), np.int8), -1))
-    wboth = _seq_pack_weights()
-    wlo = jnp.asarray(wboth[:, :, 0], jnp.bfloat16)
-    whi = jnp.asarray(wboth[:, :, 1], jnp.bfloat16)
-
-    kernel = functools.partial(_stage1_seq_kernel, dialect=dialect, tile=tile)
-    carry_arr = jnp.asarray(carry_in, jnp.int32).reshape(1)
-
-    packed, parity = pl.pallas_call(
-        kernel,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((LANES, LANES), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, tile), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((LANES, 16), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((LANES, 16), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile, 16), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((rows, 16), jnp.int32),
-            jax.ShapeDtypeStruct((1, 1), jnp.int32),
-        ],
-        scratch_shapes=[pltpu.SMEM((1,), jnp.int32)],
-        interpret=interpret,
-    )(carry_arr, w2d, triu, tril, wlo, whi)
-    return packed, parity[0, 0]
-
-
 def _scan_masked(w2d: jnp.ndarray, carry_in, dialect: Dialect):
     """Shared XLA scan internals: byte-quad words -> (masked 0x80 flag
     words (rows,128), total quote parity). Both packers build on this."""
     rows, lanes = w2d.shape
-    # raw classify + fused mask chain, mirroring the production kernel
-    # (bit-7-only contract: swar_classify_raw)
+    # raw classify + fused mask chain (bit-7-only contract:
+    # swar_classify_raw)
     s_no, qf = _classify_raw(w2d, dialect)
     p_in = swar_prefix_xor_bytes(qf)
     wp = swar_word_parity(p_in)
@@ -379,8 +119,7 @@ def stage1_seq_xla(
     rows, lanes = w2d.shape
     masked, parity = _scan_masked(w2d, carry_in, dialect)
     # masked has ONLY bit-7 positions set -> one logical shift gives
-    # clean 0x01 flags (no clear-AND; same construction as the v4
-    # kernel's mask chain)
+    # clean 0x01 flags (no clear-AND)
     u = jax.lax.shift_right_logical(masked, 7)
     v = (u * 0x01020408) >> 24  # bit b of v = byte b's flag (swar proof)
     w3 = v.reshape(rows, 16, 8)
@@ -396,29 +135,14 @@ def stage1_swar_xla(
     dialect: Dialect = DEFAULT_DIALECT,
     row_tile: int = DEFAULT_ROW_TILE,
 ):
-    """Pure-XLA twin with the identical packed layout (tile-emulated):
-    runs on any platform; used inside shard_map on CPU and as the
-    differential check for the kernel. Returns (packed, parity_out)."""
+    """Fold-layout scan (see the module docstring): (rows, 128) words
+    + carry parity -> (packed (rows//8, 128) int32, parity_out). Rows
+    must be a multiple of the tile, min(row_tile, rows)."""
     rows, lanes = w2d.shape
     tile = min(row_tile, rows)
     steps = rows // tile
-    x = w2d
-    s_no, qf = _classify_raw(x, dialect)
-    p_in = swar_prefix_xor_bytes(qf)
-    wp = swar_word_parity(p_in)
-    # global scans (no tiling needed for correctness)
-    incl = wp
-    s = 1
-    while s < lanes:
-        incl = incl + jnp.pad(incl, ((0, 0), (s, 0)))[:, :lanes]
-        s *= 2
-    lane_excl = incl - wp
-    row_tot = incl[:, lanes - 1]
-    row_excl = (jnp.cumsum(row_tot) - row_tot)[:, None]
-    base = (lane_excl + row_excl + carry_in) & 1
-    inq = p_in ^ swar_broadcast_flag(base)
-    masked = ~(s_no | inq) & _HI1
-    # per-tile fold pack to match the kernel layout (right-shift folds)
+    masked, parity = _scan_masked(w2d, carry_in, dialect)
+    # per-tile fold pack: three right-shift folds (shifts stay in bytes)
     t = masked.reshape(steps, tile, lanes)
     h = tile // 2
     sr = jax.lax.shift_right_logical
@@ -427,13 +151,12 @@ def stage1_swar_xla(
     t = t[:, :h] | sr(t[:, h:], 2)
     h //= 2
     t = (t[:, :h] | sr(t[:, h:], 4)).reshape(rows // 8, lanes)
-    parity = (jnp.sum(wp) + carry_in) & 1
     return t, parity
 
 
 def count_packed(packed: jnp.ndarray) -> jnp.ndarray:
-    """Total structural count from packed words (XLA popcount, 1/16 the
-    input data; replaces the in-kernel reduction v2 paid for)."""
+    """Total structural count from packed words (a popcount over 1/32
+    of the input data)."""
     return jnp.sum(jax.lax.population_count(packed), dtype=jnp.int32)
 
 

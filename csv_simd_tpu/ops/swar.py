@@ -1,7 +1,7 @@
 """SWAR primitives: byte-wise operations on int32-packed byte quads.
 
-The VPU's lanes are 32-bit; treating each lane as 4 packed bytes
-quadruples per-op throughput over the upcast-each-byte approach. Bytes
+Treating each 32-bit lane as 4 packed bytes quadruples per-op
+throughput over the upcast-each-byte approach. Bytes
 are packed little-endian (byte k of memory = bits 8k..8k+7), matching a
 host-side `view('<i4')` of the byte stream.
 
@@ -68,7 +68,7 @@ def swar_classify_s80_q80(
 ) -> tuple:
     """Shared-subexpression classify, 0x80-flag outputs (drop-in for
     paired swar_eq calls): (sf, qf) with bit 7 per byte set iff the byte
-    matches any `structural` char / the quote char. ~30% fewer VPU ops
+    matches any `structural` char / the quote char. ~30% fewer vector ops
     than independent detectors: the low-7 mask and bit-7 test are
     hoisted (targets must be ASCII < 0x80, asserted), each char then
     costs 2 ops, and per-char results combine before one final negate."""
@@ -135,9 +135,3 @@ def swar_word_parity(prefix: jnp.ndarray) -> jnp.ndarray:
 def swar_broadcast_flag(bit: jnp.ndarray) -> jnp.ndarray:
     """0/1 int32 -> 0x80808080-style all-bytes flag broadcast."""
     return bit * _HI1
-
-
-def swar_popcount_flags(flags80: jnp.ndarray) -> jnp.ndarray:
-    """Per-word count (0..4) of set 0x80 byte flags."""
-    t = (flags80 >> 7) & 0x01010101
-    return (t * 0x01010101) >> 24

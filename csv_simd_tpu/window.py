@@ -1,4 +1,4 @@
-"""Device window functions: sort/segment/scan on the TPU, O(n) host.
+"""Device window functions: sort/segment/scan on the device, O(n) host.
 
 The host window executor (sql._window_column) loops Python tuples per
 row — correct, but unusable at the row counts this framework targets

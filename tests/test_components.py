@@ -81,7 +81,7 @@ def test_load_rejects_stale(tape, tmp_path):
 def test_save_load_packed(tmp_path):
     import jax.numpy as jnp
 
-    from csv_simd_tpu.ops.stage1_v2 import pad_to_words
+    from csv_simd_tpu.ops.pack import pad_to_words
     from csv_simd_tpu.ops.stage1_v3 import stage1_swar_xla
     from csv_simd_tpu.tape import Header
 
@@ -280,7 +280,7 @@ def test_space_delimited_dialect():
 
     d = Dialect(delimiter=0x20)
     data = b'a b\n1 "x y"\n2 z\n'
-    for backend in ("golden", "jnp", "pallas"):
+    for backend in ("golden", "jnp"):
         t = create_from_bytes(data, backend=backend, dialect=d)
         assert t.field_cnt == 2
         assert t.seek_field(0, 1) == b'"x y"'

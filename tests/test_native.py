@@ -81,7 +81,7 @@ def test_native_quote_parity():
 
 
 def test_extract_offsets_v3_matches():
-    from csv_simd_tpu.ops.stage1_v2 import pad_to_words
+    from csv_simd_tpu.ops.pack import pad_to_words
     from csv_simd_tpu.ops.stage1_v3 import stage1_swar_xla
 
     data = synthetic_wide_table(300_000)

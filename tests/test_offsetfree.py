@@ -10,7 +10,7 @@ import pytest
 from csv_simd_tpu import create_from_bytes, golden
 from csv_simd_tpu.errors import InvalidCsvFormat
 from csv_simd_tpu.offsetfree import PackedDeviceTape, _kth_positions
-from csv_simd_tpu.ops.stage1_v2 import pad_to_words
+from csv_simd_tpu.ops.pack import pad_to_words
 from csv_simd_tpu.ops.stage1_v3 import stage1_seq_xla
 
 from corpus import basic_cases, synthetic_wide_table
@@ -120,114 +120,17 @@ def test_packed_filter_equals():
     np.testing.assert_array_equal(pt.filter_equals(1, b"zz"), [])
 
 
-def test_prefix_pallas_matches_xla_twin():
-    """The one-launch Pallas prefix kernel (round 4) is bit-identical
-    to the XLA composition at several shapes (interpret mode; the chip
-    gate runs in bench.py's build chain and tools/)."""
-    import jax.numpy as jnp
-
-    from csv_simd_tpu.offsetfree import (
-        _prefix_for_packed_pallas,
-        _prefix_for_packed_xla,
-    )
-
-    rng = np.random.default_rng(9)
-    for rows in (64, 512, 2048, 8192):
-        packed = jnp.asarray(rng.integers(
-            -2**31, 2**31, (rows, 16), dtype=np.int64).astype(np.int32))
-        a = _prefix_for_packed_pallas(packed, interpret=True)
-        b = _prefix_for_packed_xla(packed)
-        assert bool(jnp.array_equal(a, b)), rows
-
-
-def test_v4_emit_prefix_matches_separate_pass():
-    """emit_prefix (fused in-kernel prefix — measured-refuted for
-    production but kept verified) == the separate prefix pass."""
-    import jax.numpy as jnp
-
-    from csv_simd_tpu.offsetfree import _prefix_for_packed_xla
-    from csv_simd_tpu.ops.stage1_v2 import pad_to_words
-    from csv_simd_tpu.ops.stage1_v4 import stage1_fused_v4
-
-    rng = np.random.default_rng(4)
-    data = rng.choice(np.frombuffer(b'a",\n\rx,z7', np.uint8),
-                      size=200_000)
-    w2d = jnp.asarray(pad_to_words(data))
-    p, _par, _na, prefix = stage1_fused_v4(
-        w2d, 0, row_tile=512, interpret=True, count_nonascii=False,
-        emit_prefix=True)
-    want = _prefix_for_packed_xla(p)
-    assert bool(jnp.array_equal(prefix, want))
-
-
-def test_kth_positions_wide_layout_identical():
-    """The wide (rows/8, 128) build artifact (round-5 production
-    layout; same word order under row-major flatten) must serve
-    bit-identically through _kth_positions' direct wide indexing —
-    CPU builds stay narrow, so this pins the on-chip serving path."""
+@pytest.mark.parametrize("rows", [64, 13])
+def test_prefix_for_packed_row_counts(rows):
+    """The row popcount prefix equals a host cumsum of per-row bit
+    counts, both where rows divide by 8 (the (rows/8, 128) reduce) and
+    where they do not."""
     from csv_simd_tpu.offsetfree import prefix_for_packed
 
-    data = synthetic_wide_table(50_000)
-    arr = np.frombuffer(data, dtype=np.uint8)
-    w2d = jnp.asarray(pad_to_words(arr, row_align=8))
-    packed, _ = stage1_seq_xla(w2d, 0)
-    wide = jnp.asarray(np.asarray(packed).reshape(-1, 128))
-    cum_n = prefix_for_packed(packed)
-    cum_w = prefix_for_packed(wide)
-    np.testing.assert_array_equal(np.asarray(cum_n), np.asarray(cum_w))
-    offs = golden.structural_index(data)[1:]
-    ks = jnp.asarray(
-        np.r_[0, 1, 17, len(offs) - 1, np.arange(0, len(offs), 53)],
-        jnp.int32)
-    got_n = np.asarray(_kth_positions(packed, cum_n, ks))
-    got_w = np.asarray(_kth_positions(wide, cum_w, ks))
-    np.testing.assert_array_equal(got_n, got_w)
-    np.testing.assert_array_equal(got_w, offs[np.asarray(ks)])
-
-
-def test_packed_tape_wide_words_serve_identically():
-    """A PackedDeviceTape whose .words carry the wide layout serves
-    byte-identically to the narrow one (gather_fields end to end)."""
-    from csv_simd_tpu.offsetfree import _prefix_jit
-
-    data = synthetic_wide_table(20_000)
-    pt = PackedDeviceTape(data)
-    import copy
-
-    wide = copy.copy(pt)
-    wide.words = jnp.asarray(np.asarray(pt.words).reshape(-1, 128))
-    wide.cum_incl = _prefix_jit(wide.words)
-    n = int(pt.num_data_records)
-    rng = np.random.default_rng(3)
-    recs = rng.integers(0, n, 64)
-    flds = rng.integers(0, int(pt.field_cnt), recs.size)
-    a = pt.gather_fields(recs, flds, max_len=96)
-    b = wide.gather_fields(recs, flds, max_len=96)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
-def test_v4_wide_emit_prefix_matches_separate_pass():
-    """The wide kernel's fused prefix (round-5 re-measure of the
-    fusion) == the separate pass, bit-for-bit, carries included."""
-    import jax.numpy as jnp
-
-    from csv_simd_tpu.offsetfree import _prefix_for_packed_xla
-    from csv_simd_tpu.ops.stage1_v2 import pad_to_words
-    from csv_simd_tpu.ops.stage1_v4 import stage1_fused_v4
-
-    rng = np.random.default_rng(4)
-    data = rng.choice(np.frombuffer(b'a",\n\rx,z7', np.uint8),
-                      size=2 * 512 * 512 + 1)  # multi-tile grid
-    w2d = pad_to_words(data)
-    for carry in (0, 1):
-        p, _par, _na, prefix = stage1_fused_v4(
-            jnp.asarray(w2d.reshape(-1, 1024)), carry, row_tile=512,
-            interpret=True, count_nonascii=False,
-            out_mode="wide_native", emit_prefix=True)
-        narrow, _p2, _na2 = stage1_fused_v4(
-            jnp.asarray(w2d), carry, row_tile=512, interpret=True,
-            count_nonascii=False)
-        assert bool(jnp.array_equal(p.reshape(-1, 16), narrow))
-        want = _prefix_for_packed_xla(narrow)
-        assert bool(jnp.array_equal(prefix, want)), carry
+    rng = np.random.default_rng(rows)
+    packed = rng.integers(-(2**31), 2**31, (rows, 16), dtype=np.int64)
+    packed = packed.astype(np.int32)
+    bits = np.unpackbits(packed.astype("<i4").view(np.uint8), axis=1)
+    want = np.cumsum(bits.sum(axis=1))
+    got = np.asarray(prefix_for_packed(jnp.asarray(packed)))
+    np.testing.assert_array_equal(got, want)

@@ -188,9 +188,6 @@ def test_backends_agree_any_dialect(data, dialect):
     np.testing.assert_array_equal(
         build_index(data, dialect=dialect, backend="jnp"), want
     )
-    np.testing.assert_array_equal(
-        build_index(data, dialect=dialect, backend="pallas"), want
-    )
     try:
         from csv_simd_tpu import native
 

@@ -25,7 +25,7 @@ def _mesh(n):
 def test_sharded_matches_golden(n_shards):
     mesh = _mesh(n_shards)
     data = synthetic_wide_table(200_000)
-    got = build_index_sharded(data, mesh=mesh, use_pallas=False)
+    got = build_index_sharded(data, mesh=mesh)
     want = golden.structural_index(data)
     np.testing.assert_array_equal(got, want)
 
@@ -36,7 +36,7 @@ def test_sharded_quote_spanning_shards():
     mesh = _mesh(4)
     inner = "x," * 30000  # 60 KB quoted span >> one shard at this size
     data = f'a,b\n"{inner}end",2\nq,w\n'.encode()
-    got = build_index_sharded(data, mesh=mesh, use_pallas=False)
+    got = build_index_sharded(data, mesh=mesh)
     want = golden.structural_index(data)
     np.testing.assert_array_equal(got, want)
 
@@ -44,21 +44,8 @@ def test_sharded_quote_spanning_shards():
 @pytest.mark.parametrize("case", basic_cases(), ids=lambda c: c.name)
 def test_sharded_corpus(case):
     mesh = _mesh(8)
-    got = build_index_sharded(case.data, mesh=mesh, use_pallas=False)
+    got = build_index_sharded(case.data, mesh=mesh)
     want = golden.structural_index(case.data)
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("n_shards", [2, 8])
-def test_sharded_pallas_interpret(n_shards):
-    """The actual multi-chip production path — the Pallas kernel inside
-    shard_map — executed (interpret mode) on the CPU mesh and asserted
-    bit-identical to golden, quotes spanning shards included."""
-    mesh = _mesh(n_shards)
-    inner = "x," * 30000
-    data = f'a,b\n"{inner}end",2\nq,w\n'.encode()
-    got = build_index_sharded(data, mesh=mesh, use_pallas=True)
-    want = golden.structural_index(data)
     np.testing.assert_array_equal(got, want)
 
 
@@ -69,7 +56,7 @@ def test_sharded_non_power_of_two_large():
     rows % tile assertion here)."""
     mesh = _mesh(3)
     data = synthetic_wide_table(3 * 600 * 512 + 13)  # shard_rows > 512
-    got = build_index_sharded(data, mesh=mesh, use_pallas=False)
+    got = build_index_sharded(data, mesh=mesh)
     want = golden.structural_index(data)
     np.testing.assert_array_equal(got, want)
 
@@ -88,7 +75,7 @@ def test_sharded_non_power_of_two_meshes(n_shards):
     )
     ref = np.flatnonzero(golden.structural_mask(data)).astype(np.int64)
     mesh = make_mesh(n_shards)
-    got = build_index_sharded(data, mesh, use_pallas=False)
+    got = build_index_sharded(data, mesh)
     assert got[0] == 0
     np.testing.assert_array_equal(got[1:], ref)
 

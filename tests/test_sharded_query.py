@@ -4,7 +4,7 @@ same results whether the tape lives on one device or is sharded across
 the 8-device CPU mesh (TypedColumnsMixin contract).
 
 Reference context: the reference has no relational layer at all and no
-multi-device story (SURVEY.md §2.4); this is the TPU-native extension —
+multi-device story (SURVEY.md §2.4); this is the mesh extension —
 queries execute where the shards live, with XLA collectives doing the
 cross-shard gathers."""
 

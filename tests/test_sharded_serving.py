@@ -164,7 +164,7 @@ def test_sharded_packed_serves_past_2gib():
     assert len(one) == 64
     data = header + one * n_rows
     assert len(data) > 2**31
-    st = ShardedPackedTape(data, make_mesh(8), use_pallas=False)
+    st = ShardedPackedTape(data, make_mesh(8))
     assert int(st.record_cnt) == n_rows + 1
     # a record whose bytes start beyond 2^31
     far = (2**31 - len(header)) // 64 + 10
@@ -216,26 +216,3 @@ def test_sharded_packed_validate_utf8():
     # without the flag nothing is counted or checked
     t = ShardedPackedTape(bad, mesh)
     assert t.nonascii_count is None
-
-
-def test_sharded_packed_wide_pipeline_interpret():
-    """The round-5 WIDE sharded pipeline (seq_wide build + wide word
-    windows in the serve), exercised in interpret mode on the virtual
-    mesh — the exact production config of a real TPU mesh. Lookups
-    must match the host tape bit-for-bit, including quoted fields."""
-    from csv_simd_tpu.parallel.serving import ShardedPackedTape
-
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    data = synthetic_wide_table(120_000)
-    tape = create_from_bytes(data, backend="golden")
-    st = ShardedPackedTape(data, make_mesh(8), use_pallas=True,
-                           interpret=True)
-    assert st.words.shape[1] == 128, "wide layout expected"
-    rng = np.random.default_rng(4)
-    recs = rng.integers(0, tape.num_data_records, 48)
-    flds = rng.integers(0, tape.field_cnt, 48)
-    out, lengths, valid = st.gather_fields(recs, flds, max_len=48)
-    vals = st.to_host_lists(out, lengths, valid)
-    for i in range(48):
-        assert vals[i] == tape.seek_field(int(recs[i]), int(flds[i]))

@@ -64,11 +64,10 @@ def test_spans_cover_boundaries():
     assert inq[CHUNK + 8 * 1024] or inq[CHUNK + 16 * 1024]
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_sharded_streaming_bit_identical(use_pallas):
+@pytest.mark.parametrize("pipeline_depth", [1, 2])
+def test_sharded_streaming_bit_identical(pipeline_depth):
     mesh = make_mesh(8)
-    b = ShardedStreamingIndexBuilder(
-        mesh, use_pallas=use_pallas, interpret=use_pallas)
+    b = ShardedStreamingIndexBuilder(mesh, pipeline_depth=pipeline_depth)
     for start in range(0, len(DATA), CHUNK):
         b.feed(DATA[start : start + CHUNK])
     got = b.finish()

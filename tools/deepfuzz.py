@@ -3,8 +3,8 @@
 Two sweeps, both CPU-only and deterministic per seed:
 
   index:  random dialects x random byte soup -> golden vs jnp vs
-          pallas(interpret) vs native threads, plus streaming at
-          random cut points (400 iterations ~4 min).
+          native threads, plus streaming at random cut points (400
+          iterations ~4 min).
   sql:    random clean tables x random WHERE/GROUP BY -> sql() vs
           pandas (150 iterations ~3 min).
 
@@ -14,12 +14,13 @@ the window/setop/in_rows executor additions).
 """
 
 import io
+import os
 import random
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def fuzz_index(seed: int, iters: int = 400) -> None:
@@ -43,9 +44,6 @@ def fuzz_index(seed: int, iters: int = 400) -> None:
         want = golden.structural_index(data, d)
         got = build_index(data, dialect=d, backend="jnp")
         assert np.array_equal(got, want), (i, "jnp")
-        if i % 4 == 0:
-            got = build_index(data, dialect=d, backend="pallas")
-            assert np.array_equal(got, want), (i, "pallas")
         if native.available():
             offs, _ = native.host_stage1(
                 data, d, n_threads=rng.choice([1, 3, 8]))

@@ -2,7 +2,7 @@
 
 Each process plays one "host" with its own local CPU devices;
 jax.distributed stitches them into one global mesh over DCN, and the
-sharded stage-1 runs exactly as on a pod slice: local scans + exclusive
+sharded stage-1 runs as on a multi-host cluster: local scans + exclusive
 XOR-scan parity collective across ALL hosts' shards.
 
 Launched by tests/test_multihost.py as N subprocesses:
@@ -41,7 +41,7 @@ def main():
         ),
     )
     from csv_simd_tpu import golden
-    from csv_simd_tpu.ops.stage1_v2 import pad_to_words
+    from csv_simd_tpu.ops.pack import pad_to_words
     from csv_simd_tpu.parallel.sharded import AXIS, sharded_stage1
     from corpus import synthetic_wide_table
 
@@ -64,26 +64,26 @@ def main():
         w2d.shape, sharding, lambda idx: w2d[idx]
     )
     packed, counts, count_excl, total, parity = sharded_stage1(
-        w_dev, 0, mesh, use_pallas=False
+        w_dev, 0, mesh
     )
     total = int(total)
     want = len(golden.structural_index(data)) - 1
     assert total == want, (total, want)
     # the sequential (serving) layout across hosts too
     packed_seq, _c2, _ce2, total2, _p2 = sharded_stage1(
-        w_dev, 0, mesh, use_pallas=False, layout="seq"
+        w_dev, 0, mesh, layout="seq"
     )
     assert int(total2) == want, (int(total2), want)
-    # timed passes for the scaling table (tools/scaling_table.py): the
-    # jit is warm from the calls above; collectives keep the processes
-    # in lockstep, so pid 0's wall clock is the group's
+    # timed passes: the jit is warm from the calls above; collectives
+    # keep the processes in lockstep, so pid 0's wall clock is the
+    # group's
     import time
 
     reps = int(os.environ.get("MULTIHOST_TIME_REPS", "5"))
     best = float("inf")
     for _ in range(reps):
         t0 = time.time()
-        out = sharded_stage1(w_dev, 0, mesh, use_pallas=False)
+        out = sharded_stage1(w_dev, 0, mesh)
         jax.block_until_ready(out[0])
         best = min(best, time.time() - t0)
     if pid == 0:

@@ -17,17 +17,18 @@ Rows per mesh width n:
 Caveat stamped into the output: virtual CPU devices SHARE the host's
 cores, and the n=1 'device' already uses them all via XLA CPU
 intra-op threading — the table attributes OVERHEAD, it cannot measure
-chip scaling (SCALING.md says the same).
+device scaling.
 
     python tools/shard_overhead.py [MB]
 """
 
 import functools
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
@@ -40,7 +41,7 @@ from jax import shard_map
 
 from csv_simd_tpu import golden
 from csv_simd_tpu.config import DEFAULT_DIALECT
-from csv_simd_tpu.ops.stage1_v2 import pad_to_words
+from csv_simd_tpu.ops.pack import pad_to_words
 from csv_simd_tpu.ops.stage1_v3 import count_packed, stage1_seq_xla
 from csv_simd_tpu.parallel.sharded import (
     AXIS,
@@ -145,10 +146,9 @@ def main():
                                NamedSharding(mesh, P(AXIS, None)))
         carry = jnp.zeros(1, jnp.int32)
         # correctness anchor for the production path
-        prod = sharded_stage1(w_dev, 0, mesh, use_pallas=False)
+        prod = sharded_stage1(w_dev, 0, mesh)
         assert int(prod[3]) == want, (n, int(prod[3]), want)
-        t_prod = _time(lambda w: sharded_stage1(
-            w, 0, mesh, use_pallas=False), w_dev)
+        t_prod = _time(lambda w: sharded_stage1(w, 0, mesh), w_dev)
         row = {"shards": n,
                "production_s": round(t_prod, 6)}
         for which in ("old4", "new2", "nocoll", "nophaseA"):
